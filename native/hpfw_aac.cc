@@ -1,4 +1,4 @@
-// ADTS AAC-LC decoder — C++ twin of hpfw_tpu/io/aac.py.
+// ADTS AAC-LC decoder — C++ twin of hpfw_jax/io/aac.py.
 //
 // Mirrors the from-spec NumPy decoder operation for operation (same
 // probe-recovered tables via the GENERATED aac_tables.inc, same

@@ -1,6 +1,6 @@
 /* Validation-only libavcodec shim: AAC-LC reference decode + encode.
  *
- * NOT part of any decode path — hpfw_tpu.io.aac is (to be) a standalone
+ * NOT part of any decode path — hpfw_jax.io.aac is (to be) a standalone
  * from-spec decoder; this shim exists so tests and the table-recovery
  * tooling can certify it against a real reference implementation
  * (ffmpeg's AAC decoder) and generate real-encoder fixtures (ffmpeg's
@@ -9,7 +9,7 @@
  *
  * Built as a SEPARATE optional shared library (make aacref) so the main
  * libhpfw_native.so never depends on system ffmpeg; the Python wrapper
- * (hpfw_tpu/io/aac_ref.py) degrades to available() == False when the
+ * (hpfw_jax/io/aac_ref.py) degrades to available() == False when the
  * build or the libraries are missing.
  *
  * Reference parity note: the C++ reference wraps an Essentia-class audio

@@ -1,4 +1,4 @@
-// MPEG-1 audio decoder (Layers I/II/III) — C++ twin of hpfw_tpu/io/mp3.py.
+// MPEG-1 audio decoder (Layers I/II/III) — C++ twin of hpfw_jax/io/mp3.py.
 //
 // Mirrors the from-spec NumPy decoder operation for operation (same
 // recovered tables via mpeg_tables.inc, same double-precision pipeline,

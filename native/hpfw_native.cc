@@ -1,10 +1,10 @@
-// hpfw_tpu native runtime: WAV decode, resampling, and a threaded CPU
+// hpfw_jax native runtime: WAV decode, resampling, and a threaded CPU
 // Hamming matcher.
 //
 // The reference library is C++ end to end (SURVEY.md §2.1); in this rebuild
-// the TPU owns the compute path (JAX/XLA/Pallas) and this library owns the
+// the accelerator owns the compute path (JAX/XLA) and this library owns the
 // host-side runtime the way the reference's native code does:
-//   - audio decode + resample (the data loader feeding the TPU),
+//   - audio decode + resample (the data loader feeding the device),
 //   - the CPU matcher used by BASELINE config 1 ("match ... on CPU") and as
 //     a host-side fallback, scanning offsets with XOR + POPCNT across a
 //     std::thread pool over tracks (the reference's batch-driver analog,
@@ -223,7 +223,7 @@ int hpfw_wav_decode(const uint8_t* data, int64_t size,
 }
 
 // ---------------------------------------------------------------------------
-// FLAC decode. Mirrors hpfw_tpu/io/flac.py (the NumPy twin is the oracle;
+// FLAC decode. Mirrors hpfw_jax/io/flac.py (the NumPy twin is the oracle;
 // tests/test_flac.py asserts bit-identical float output): STREAMINFO, frame
 // headers with CRC-8, CONSTANT/VERBATIM/FIXED/LPC subframes, Rice + Rice2
 // partitions with escapes, wasted bits, all four channel assignments, frame
@@ -233,7 +233,7 @@ namespace flac {
 
 // 64-bit-cached MSB-first bit reader: reads refill a word cache, unary
 // codes consume whole cached runs via clz — ~20x faster than per-bit reads
-// (FLAC ingestion feeds the TPU extraction pipeline; the reader is the
+// (FLAC ingestion feeds the device extraction pipeline; the reader is the
 // decoder's hot loop).
 struct BitR {
   const uint8_t* d;
@@ -570,7 +570,7 @@ int hpfw_flac_decode(const uint8_t* data, int64_t size,
 }
 
 // ---------------------------------------------------------------------------
-// Ogg Vorbis decode. Mirrors hpfw_tpu/io/{ogg,vorbis}.py (the NumPy twin;
+// Ogg Vorbis decode. Mirrors hpfw_jax/io/{ogg,vorbis}.py (the NumPy twin;
 // tests/test_vorbis.py asserts float32-rounding-level equality): Ogg pages
 // with CRC verification, LSB-first bit unpacking, codebooks (ordered/sparse
 // lengths, lookup 0/1/2), first-fit canonical Huffman, floor 1, residues
@@ -1521,7 +1521,7 @@ void hpfw_resample_sinc(const float* in, int64_t n_in, int32_t sr_in,
 // Hashprint extraction (the reference's C++ fingerprint() surface,
 // SURVEY.md §1.2): framed NDFT CQT -> log magnitude -> context-window
 // projection -> delta -> sign -> packed 64-bit hashprints. Mirrors
-// hpfw_tpu/oracle/pipeline.py in float64; the sign threshold makes the
+// hpfw_jax/oracle/pipeline.py in float64; the sign threshold makes the
 // result equal to the oracle except at ~zero delta margins
 // (tests/test_native.py margin-audits it). Frames parallelize across a
 // std::thread pool — the reference's CPU batch-driver style.

@@ -1,6 +1,6 @@
 // hpfw_opus.cc — C++ twin of the from-spec Opus (CELT) decoder.
 //
-// Operation-for-operation mirror of hpfw_tpu/io/opus.py and the _celt_*
+// Operation-for-operation mirror of hpfw_jax/io/opus.py and the _celt_*
 // modules (RFC 6716 §3/§4 + RFC 7845 Ogg Opus). Everything that decides
 // bitstream consumption is exact integer arithmetic identical to the NumPy
 // twin (a single mis-decoded symbol desyncs the range coder, and the
@@ -9,7 +9,7 @@
 // Static mode tables come from celt_tables.inc, GENERATED by
 // tools/gen_celt_tables.py from the probe-recovered Python tables — never
 // edited by hand. Reference mount is empty (SURVEY.md §0); the system
-// libopus oracle (hpfw_tpu/io/opus_ref.py) is the certification target for
+// libopus oracle (hpfw_jax/io/opus_ref.py) is the certification target for
 // the Python twin, and this file is certified against that twin.
 
 #include <algorithm>
@@ -1827,7 +1827,7 @@ struct CeltDecoder {
 
 // ---------------------------------------------------------------------------
 // Opus packet layer (RFC 6716 §3) + Ogg Opus container (RFC 7845) — twin of
-// hpfw_tpu/io/opus.py. CELT mode only (music streams); SILK/hybrid packets
+// hpfw_jax/io/opus.py. CELT mode only (music streams); SILK/hybrid packets
 // are rejected like the twin.
 // ---------------------------------------------------------------------------
 

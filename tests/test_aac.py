@@ -20,8 +20,8 @@ import sys
 import numpy as np
 import pytest
 
-from hpfw_tpu.io import aac_ref, wav
-from hpfw_tpu.io.aac import (TNS_MAX_BANDS_LONG, TNS_MAX_BANDS_SHORT,
+from hpfw_jax.io import aac_ref, wav
+from hpfw_jax.io.aac import (TNS_MAX_BANDS_LONG, TNS_MAX_BANDS_SHORT,
                              decode_aac)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -235,7 +235,7 @@ def test_composed_pns_grouped_short():
 # ---------------------------------------------------------------- dispatch
 
 def test_load_dispatch(tmp_path):
-    from hpfw_tpu.config import HpfwConfig
+    from hpfw_jax.config import HpfwConfig
 
     sr = 44100
     pcm = _sig(sr, 1.0, 2, seed=3)
@@ -255,8 +255,8 @@ def test_adts_sniff_dispatch(tmp_path):
     MPEG sniff can fire on spurious syncs inside AAC payload bytes, which
     is why load_wav checks ADTS FIRST; the ADTS sniff's 3-frame chain
     keeps the reverse misroute out.)"""
-    from hpfw_tpu.io.mpeg_ref import lame_encode
-    from hpfw_tpu.io.wav import _looks_like_adts
+    from hpfw_jax.io.mpeg_ref import lame_encode
+    from hpfw_jax.io.wav import _looks_like_adts
 
     sr = 44100
     pcm = _sig(sr, 0.5, 1)
@@ -298,7 +298,7 @@ def test_native_twin_bit_identical():
     on these streams the float32 outputs are bit-identical (any future
     accumulation-order drift is margin-tested at the float32 floor, the
     MP3-twin convention)."""
-    from hpfw_tpu.io import native
+    from hpfw_jax.io import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -315,8 +315,8 @@ def test_native_twin_bit_identical():
 
 def test_native_ingest_aac(tmp_path):
     """ingest_files decodes .aac files identically to load_audio."""
-    from hpfw_tpu.io import ingest, native
-    from hpfw_tpu.config import HpfwConfig
+    from hpfw_jax.io import ingest, native
+    from hpfw_jax.config import HpfwConfig
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -338,7 +338,7 @@ def test_native_ingest_aac(tmp_path):
 def test_fuzz_bitflips_never_crash():
     """Random bit flips in a valid stream must decode or raise ValueError
     — never crash (the MP3 decoder's fuzz-hardening convention)."""
-    from hpfw_tpu.io import native
+    from hpfw_jax.io import native
 
     rng = np.random.default_rng(0)
     pcm = _sig(22050, 1.0, 1, seed=0)

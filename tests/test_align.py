@@ -9,7 +9,7 @@ while an imposter's per-window argmaxes scatter across the band.
 import numpy as np
 import pytest
 
-from hpfw_tpu.match.align import (offset_line_fit, structure_evidence,
+from hpfw_jax.match.align import (offset_line_fit, structure_evidence,
                                   subwindow_offsets)
 
 
@@ -67,7 +67,7 @@ def test_imposter_scatters():
 
 
 def test_rigid_structured_separates_true_from_imposter():
-    from hpfw_tpu.api import rigid_structured
+    from hpfw_jax.api import rigid_structured
 
     track = _prints(11)
     q = _rendition(track, 60, 320, 1.0, flip_bits=6, seed=12)
@@ -110,7 +110,7 @@ def test_flat_surface_is_uninformative_not_collinear():
     quiet audio, generic near-match) must score inlier 0.0, not the
     degenerate 1.0 that tie-broken argmaxes would produce: at 250k the
     unmasked gate confirmed 30% of wrong rigid answers on stretched
-    queries through exactly this mode (RESULTS r5)."""
+    queries through exactly this mode (pre-GPU run, see git history)."""
     track = np.tile(np.array([[0xDEADBEEF, 0x12345678]], np.uint32),
                     (600, 1))
     q = _prints(21, l=320)
@@ -120,5 +120,5 @@ def test_flat_surface_is_uninformative_not_collinear():
     ev = structure_evidence(q, track, 50, k=8, band=24)
     assert ev["inlier_frac"] == 0.0
     assert ev["n_informative"] == 0
-    from hpfw_tpu.api import rigid_structured
+    from hpfw_jax.api import rigid_structured
     assert not rigid_structured(q, track, 50, inlier=0.75)

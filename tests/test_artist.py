@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from hpfw_tpu import api
-from hpfw_tpu.artist import ArtistDB
-from hpfw_tpu.io import synth
+from hpfw_jax import api
+from hpfw_jax.artist import ArtistDB
+from hpfw_jax.io import synth
 
 
 def _build(cfg, n_artists=3, n_tracks=4, seconds=4.0):
@@ -85,7 +85,7 @@ def test_scaled_unknown_artist_ranks_globally(cfg):
 
 def test_synth_artist_batch_styles(cfg):
     """Device-side artist rendering: deterministic, style-consistent."""
-    from hpfw_tpu.io import synth_jax
+    from hpfw_jax.io import synth_jax
 
     a0 = np.asarray(synth_jax.synth_artist_batch(1, np.arange(4), 3.0, cfg))
     a0b = np.asarray(synth_jax.synth_artist_batch(1, [2], 3.0, cfg))

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from hpfw_tpu import api, cli
-from hpfw_tpu.io import synth
-from hpfw_tpu.io.wav import save_wav
+from hpfw_jax import api, cli
+from hpfw_jax.io import synth
+from hpfw_jax.io.wav import save_wav
 from tests.test_persist import _filters
 
 
@@ -47,8 +47,8 @@ def test_cli_match_requires_db_or_cache(cfg, tmp_path):
 def test_cli_pool(cfg, tmp_path, capsys):
     dbp, qp = _setup(cfg, tmp_path)
     # second stream: another catalog track
-    from hpfw_tpu import api
-    from hpfw_tpu.io import synth
+    from hpfw_jax import api
+    from hpfw_jax.io import synth
 
     tracks = synth.synth_catalog(6, 4.0, cfg)
     q2 = synth.make_query(tracks[1], 0.5, 2.2, cfg, noise_db=-15.0, seed=2)
@@ -63,8 +63,8 @@ def test_cli_pool(cfg, tmp_path, capsys):
 def test_cli_match_mp3_query(cfg, tmp_path, capsys):
     """The CLI accepts lossy-codec queries transparently via load_audio
     (here: an MP3 at 44.1 kHz, resampled on ingest)."""
-    from hpfw_tpu.io.mp3enc import encode_mp3
-    from hpfw_tpu.io.wav import load_wav, resample
+    from hpfw_jax.io.mp3enc import encode_mp3
+    from hpfw_jax.io.wav import load_wav, resample
 
     dbp, qp = _setup(cfg, tmp_path)
     q, sr = load_wav(qp)

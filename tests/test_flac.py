@@ -2,7 +2,7 @@
 decoder bit-equality, load_wav dispatch, and CRC integrity checking.
 
 No FLAC tooling exists in this offline environment, so fixtures come from
-hpfw_tpu.io.flac.encode_flac — a real, spec-conforming encoder (CRC-8/16,
+hpfw_jax.io.flac.encode_flac — a real, spec-conforming encoder (CRC-8/16,
 Rice partitions, stereo decorrelation), making these true bitstream tests
 rather than self-inverses of one codec implementation: the encoder and the
 two decoders are three independent code paths over the wire format.
@@ -11,8 +11,8 @@ two decoders are three independent code paths over the wire format.
 import numpy as np
 import pytest
 
-from hpfw_tpu.io import native, wav
-from hpfw_tpu.io.flac import decode_flac, encode_flac
+from hpfw_jax.io import native, wav
+from hpfw_jax.io.flac import decode_flac, encode_flac
 
 
 def _sig(n, seed=0, stereo=False):

@@ -13,12 +13,12 @@ import os
 import numpy as np
 import pytest
 
-from hpfw_tpu import api
-from hpfw_tpu.io import ingest, native, synth
-from hpfw_tpu.io.flac import encode_flac
-from hpfw_tpu.io.mp3enc import encode_mp3
-from hpfw_tpu.io.vorbis import encode_vorbis
-from hpfw_tpu.io.wav import load_audio, resample, save_wav
+from hpfw_jax import api
+from hpfw_jax.io import ingest, native, synth
+from hpfw_jax.io.flac import encode_flac
+from hpfw_jax.io.mp3enc import encode_mp3
+from hpfw_jax.io.vorbis import encode_vorbis
+from hpfw_jax.io.wav import load_audio, resample, save_wav
 from tests.test_persist import _filters
 
 pytestmark = pytest.mark.skipif(not native.available(),

@@ -19,11 +19,11 @@ full scale), which is the tolerance used throughout.
 import numpy as np
 import pytest
 
-from hpfw_tpu.config import HpfwConfig
-from hpfw_tpu.io import mpeg_ref, wav
-from hpfw_tpu.io._mpeg_l2_tables import ALLOC_TABLES, select_table
-from hpfw_tpu.io.mp3 import FrameHeader, decode_mp3
-from hpfw_tpu.io.mp3enc import (
+from hpfw_jax.config import HpfwConfig
+from hpfw_jax.io import mpeg_ref, wav
+from hpfw_jax.io._mpeg_l2_tables import ALLOC_TABLES, select_table
+from hpfw_jax.io.mp3 import FrameHeader, decode_mp3
+from hpfw_jax.io.mp3enc import (
     encode_mp3,
     layer1_frame_mono,
     layer2_frame,
@@ -139,7 +139,7 @@ def _distinct_l2_tables():
 
 
 def _l2_sample_bits(n):
-    from hpfw_tpu.io._mpeg_l2_tables import QCLASS
+    from hpfw_jax.io._mpeg_l2_tables import QCLASS
 
     bits, grouped = QCLASS[n]
     return bits if grouped else 3 * bits
@@ -148,7 +148,7 @@ def _l2_sample_bits(n):
 def _l2_frames_covering(ti, sr_idx, mono, br, rng):
     """Frames covering every (subband, allocation code) pair of table `ti`
     with random in-range digits, packed under the frame bit budget."""
-    from hpfw_tpu.io._mp3_layer2 import SCFSI_MAP
+    from hpfw_jax.io._mp3_layer2 import SCFSI_MAP
 
     table = ALLOC_TABLES[ti]
     sblimit = len(table)
@@ -213,7 +213,7 @@ def test_layer2_joint_stereo_bounds_vs_ref():
     ti = select_table(sr_idx, False, br)
     table = ALLOC_TABLES[ti]
     sblimit = len(table)
-    from hpfw_tpu.io._mp3_layer2 import SCFSI_MAP
+    from hpfw_jax.io._mp3_layer2 import SCFSI_MAP
 
     sr = (44100, 48000, 32000)[sr_idx]
     kbps = (0, 32, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256,
@@ -316,7 +316,7 @@ def test_layer3_composed_sparse_spectrum_vs_ref():
     """Hand-composed Layer III frames (count1-only and big-value granules)
     decode identically in both decoders — direct bit-level control of the
     side info + Huffman part, independent of the encoder."""
-    from hpfw_tpu.io._mp3_huffman import BIG_VALUE_TABLES, COUNT1_TABLES
+    from hpfw_jax.io._mp3_huffman import BIG_VALUE_TABLES, COUNT1_TABLES
 
     inv13 = {v: k for k, v in BIG_VALUE_TABLES[13][1].items()}
     invB = {v: k for k, v in COUNT1_TABLES[1].items()}
@@ -348,7 +348,7 @@ def test_layer3_composed_sparse_spectrum_vs_ref():
 
 def _hl3_pairs(coded_vals):
     """coded position -> signed value dict, as table-13 big-value bits."""
-    from hpfw_tpu.io._mp3_huffman import BIG_VALUE_TABLES
+    from hpfw_jax.io._mp3_huffman import BIG_VALUE_TABLES
 
     inv13 = {v: k for k, v in BIG_VALUE_TABLES[13][1].items()}
     if not coded_vals:
@@ -707,7 +707,7 @@ def test_layer2_twolame_streams_vs_ref(sr):
 def test_lsf_layer2_every_allocation_vs_ref():
     """ISO 13818-3 Table B.1 certification: every (subband, allocation)
     pair of the LSF Layer II table decodes identically to mpg123."""
-    from hpfw_tpu.io._mpeg_l2_tables import LSF_TABLE
+    from hpfw_jax.io._mpeg_l2_tables import LSF_TABLE
 
     table = ALLOC_TABLES[LSF_TABLE]
     sblimit = len(table)
@@ -726,7 +726,7 @@ def test_lsf_layer2_every_allocation_vs_ref():
         taken = set()
         rest = []
         for sb, a in todo:
-            from hpfw_tpu.io._mp3_layer2 import SCFSI_MAP
+            from hpfw_jax.io._mp3_layer2 import SCFSI_MAP
 
             n = table[sb][1][a - 1]
             cost = 2 + SCFSI_MAP[int(scfsi[sb, 0])][0] * 6 \
@@ -832,7 +832,7 @@ def test_lsf_scalefactor_partitions_vs_ref():
     rng = np.random.default_rng(1)
     coded = {2 * i: int(rng.integers(-7, 8)) for i in range(40)}
     for sc in (101, 303, 399, 404, 460, 499, 500, 505, 511):
-        from hpfw_tpu.io._mp3_layer3 import _NR_OF_SFB, _lsf_slen
+        from hpfw_jax.io._mp3_layer3 import _NR_OF_SFB, _lsf_slen
 
         class _G:
             scalefac_compress = sc
@@ -854,7 +854,7 @@ def test_lsf_scalefactor_partitions_vs_ref():
 
 # --- C++ twin (native/hpfw_mp3.cc) -----------------------------------------
 
-from hpfw_tpu.io import native  # noqa: E402
+from hpfw_jax.io import native  # noqa: E402
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native library unavailable")
@@ -1011,7 +1011,7 @@ def test_looks_like_mpeg_rejects_other_binaries():
 def test_fingerprint_identical_across_codecs(tmp_path):
     """The full pipeline contract: the same audio through WAV and MP3 paths
     yields overwhelmingly similar hashprints (lossy codec, same config)."""
-    from hpfw_tpu import api
+    from hpfw_jax import api
 
     cfg = HpfwConfig()
     sr = cfg.sample_rate

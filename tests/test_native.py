@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hpfw_tpu import oracle
-from hpfw_tpu.io import native, synth, wav
+from hpfw_jax import oracle
+from hpfw_jax.io import native, synth, wav
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -59,7 +59,7 @@ def test_native_fingerprint_matches_oracle(cfg):
     """Full C++ extraction (CQT + projection + delta + sign + pack) equals
     the float64 oracle, margin-audited: the two float64 pipelines may only
     disagree where |delta| ~ 0 (different GEMM accumulation orders)."""
-    from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
+    from tests.test_pipeline import assert_bits_match_with_margin_audit
 
     rng = np.random.default_rng(11)
     filters = (rng.standard_normal((cfg.context_dim, 64))
@@ -84,7 +84,7 @@ def test_native_fingerprint_msb0_and_short_input(cfg):
     got = native.fingerprint_cpu(pcm, filters, cfg2)
     want = oracle.fingerprint(pcm, filters, cfg2)
     margins = oracle.delta_margins(pcm, filters, cfg2)
-    from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
+    from tests.test_pipeline import assert_bits_match_with_margin_audit
 
     assert_bits_match_with_margin_audit(got, want, margins, rel_tol=1e-6)
     # Too-short input yields zero prints, not an error (cfg.min_samples).

@@ -16,10 +16,10 @@ import ctypes as C
 import numpy as np
 import pytest
 
-from hpfw_tpu.io import wav
-from hpfw_tpu.io.opus import (OpusDecoder, decode_opus, decode_opus_packets,
+from hpfw_jax.io import wav
+from hpfw_jax.io.opus import (OpusDecoder, decode_opus, decode_opus_packets,
                               parse_packet)
-from hpfw_tpu.io.opus_ref import (opus_ref_available, opus_ref_decode_packets,
+from hpfw_jax.io.opus_ref import (opus_ref_available, opus_ref_decode_packets,
                                   opus_ref_encode_ogg,
                                   opus_ref_encode_packets)
 
@@ -217,7 +217,7 @@ def test_ogg_opus_rejects_malformed():
     with pytest.raises(ValueError):
         decode_opus(b"OggS" + b"\x00" * 64)
     # valid pages but missing OpusHead
-    from hpfw_tpu.io.ogg import write_pages
+    from hpfw_jax.io.ogg import write_pages
     blob = write_pages([(b"NotOpusH" + b"\x00" * 12, 0)])
     with pytest.raises(ValueError):
         decode_opus(blob)
@@ -232,9 +232,9 @@ def test_native_twin_margin_and_final_range():
     (proving identical bitstream consumption end to end) and the float
     synthesis sits at the float32 floor (the double pipelines differ only
     in accumulation order, MP3/AAC-twin convention)."""
-    from hpfw_tpu.io import native
-    from hpfw_tpu.io.ogg import pages_to_packets, parse_pages
-    from hpfw_tpu.io.opus import _parse_head
+    from hpfw_jax.io import native
+    from hpfw_jax.io.ogg import pages_to_packets, parse_pages
+    from hpfw_jax.io.opus import _parse_head
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -265,7 +265,7 @@ def test_native_twin_margin_and_final_range():
 def test_native_ingest_opus(tmp_path, cfg):
     """ingest_files decodes .opus files identically to load_audio (both
     route through the native decoder + sinc resampler)."""
-    from hpfw_tpu.io import ingest, native
+    from hpfw_jax.io import ingest, native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -285,7 +285,7 @@ def test_native_ingest_opus(tmp_path, cfg):
 
 
 def test_native_opus_rejects_malformed():
-    from hpfw_tpu.io import native
+    from hpfw_jax.io import native
 
     if not native.available():
         pytest.skip("native library unavailable")

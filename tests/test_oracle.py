@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 import scipy.signal
 
-from hpfw_tpu import oracle
-from hpfw_tpu.config import HpfwConfig
-from hpfw_tpu.io import synth
-from hpfw_tpu.io.wav import load_wav, resample_linear, save_wav
+from hpfw_jax import oracle
+from hpfw_jax.config import HpfwConfig
+from hpfw_jax.io import synth
+from hpfw_jax.io.wav import load_wav, resample_linear, save_wav
 
 
 def _filters(cfg, seed=0):

@@ -5,8 +5,8 @@ missing #2)."""
 import numpy as np
 import pytest
 
-from hpfw_tpu import api
-from hpfw_tpu.io import native, wav
+from hpfw_jax import api
+from hpfw_jax.io import native, wav
 from tests.test_persist import _filters
 
 
@@ -77,7 +77,7 @@ def test_fingerprints_stable_under_441_to_2205_ingestion(cfg):
     """
     import dataclasses
 
-    from hpfw_tpu.io import synth
+    from hpfw_jax.io import synth
 
     cfg_hi = dataclasses.replace(cfg, sample_rate=2 * cfg.sample_rate)
     # Noiseless renders: the generator's per-rate noise floor would cap

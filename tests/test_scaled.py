@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hpfw_tpu import api, oracle
-from hpfw_tpu.io import synth
-from hpfw_tpu.match.scaled import TwoStageDB
-from hpfw_tpu.ops import coarse as coarse_ops
-from hpfw_tpu.parallel import mesh as meshlib
+from hpfw_jax import api, oracle
+from hpfw_jax.io import synth
+from hpfw_jax.match.scaled import TwoStageDB
+from hpfw_jax.ops import coarse as coarse_ops
+from hpfw_jax.parallel import mesh as meshlib
 
 
 def _filters(cfg, seed=0):
@@ -76,11 +76,12 @@ def test_two_stage_sharded_equals_single(cfg):
     sharded = TwoStageDB(db, stride=4, mesh=mesh)
     q = synth.make_query(tracks[7], 1.1, 2.0, cfg, noise_db=-15.0, seed=3)
     qfp = api.fingerprint(q, filters, cfg)
-    ids_1, s_1, o_1 = single.match(qfp, top_k=3, pool=19)
-    ids_8, s_8, o_8 = sharded.match(qfp, top_k=3, pool=3)
+    ids_1, s_1, o_1 = single.match(qfp, top_k=3, pool=5)
+    ids_8, s_8, o_8 = sharded.match(qfp, top_k=3, pool=5)
     assert ids_1[0] == ids_8[0] == "7"
-    assert int(s_1[0]) == int(s_8[0])
-    assert int(o_1[0]) == int(o_8[0])
+    assert ids_1 == ids_8
+    np.testing.assert_array_equal(s_1, s_8)
+    np.testing.assert_array_equal(o_1, o_8)
 
 
 def test_two_stage_exact_excerpt_perfect_score(cfg):
@@ -98,41 +99,39 @@ def test_two_stage_exact_excerpt_perfect_score(cfg):
 
 
 def test_two_stage_sharded_pallas_fine(cfg):
-    """The v4-8 production path: per-shard Pallas fine kernel (interpret on
-    the CPU sim) + all-gather merge — must equal the single-device result."""
+    """The four-device production path: per-shard coarse sweep + band-gather
+    fine rescan + all-gather merge — must equal the single-device result."""
     mesh = meshlib.db_mesh(8)
     tracks = synth.synth_catalog(19, 4.0, cfg)
     filters = _filters(cfg)
     db = api.build_db(tracks, filters, cfg)
     single = TwoStageDB(db, stride=4)
-    sharded = TwoStageDB(db, stride=4, mesh=mesh,
-                         use_pallas_fine=True, pallas_interpret=True)
+    sharded = TwoStageDB(db, stride=4, mesh=mesh)
     q = synth.make_query(tracks[12], 0.7, 2.0, cfg, noise_db=-15.0, seed=8)
     qfp = api.fingerprint(q, filters, cfg)
     ids_1, s_1, o_1 = single.match(qfp, top_k=3, pool=19)
-    ids_8, s_8, o_8 = sharded.match(qfp, top_k=3, pool=3)
+    ids_8, s_8, o_8 = sharded.match(qfp, top_k=3, pool=19)
     assert ids_1[0] == ids_8[0] == "12"
-    assert int(s_1[0]) == int(s_8[0])
-    assert int(o_1[0]) == int(o_8[0])
+    assert ids_1 == ids_8
+    np.testing.assert_array_equal(s_1, s_8)
+    np.testing.assert_array_equal(o_1, o_8)
 
 
 def test_two_stage_single_device_pallas_tight_planes(cfg):
-    """Single-device Pallas path (tight plane packing): cross-slot DMA reads
-    must never score — exact agreement with the XLA path required."""
+    """Single-device path, first and LAST track included: the band gather
+    never reads past a track's rows into its neighbour's — exact agreement
+    with the dense matcher on the top hit."""
     tracks = synth.synth_catalog(14, 4.0, cfg)
     filters = _filters(cfg)
     db = api.build_db(tracks, filters, cfg)
-    xla = TwoStageDB(db, stride=4)
-    pallas = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     for seed, tid in [(1, 9), (2, 0), (3, 13)]:  # incl. first and LAST track
         q = synth.make_query(tracks[tid], 0.8, 2.0, cfg, noise_db=-15.0, seed=seed)
         qfp = api.fingerprint(q, filters, cfg)
-        ids_x, s_x, o_x = xla.match(qfp, top_k=3, pool=14)
-        ids_p, s_p, o_p = pallas.match(qfp, top_k=3, pool=14)
-        assert ids_p == ids_x
-        np.testing.assert_array_equal(s_p, s_x)
-        np.testing.assert_array_equal(o_p, o_x)
-        assert ids_p[0] == str(tid)
+        ids_p, s_p, o_p = ts.match(qfp, top_k=3, pool=14)
+        ids_d, s_d, o_d = api.match(qfp, db, top_k=3)
+        assert ids_p[0] == ids_d[0] == str(tid)
+        assert int(s_p[0]) == int(s_d[0]) and int(o_p[0]) == int(o_d[0])
 
 
 def test_two_stage_overlong_query_raises(cfg):
@@ -167,20 +166,20 @@ def test_dense_match_overlong_query_truncated_overlap(cfg):
 
 
 def test_two_stage_pallas_coarse_equals_xla_coarse(cfg):
-    """Isolates the fused coarse kernel: same fine path, coarse XLA vs Pallas."""
-    tracks = synth.synth_catalog(21, 4.0, cfg)
+    """The coarse stage pools identically on one device and on the 8-device
+    mesh: with the same catalog-wide pool (smaller than the catalog), the
+    full top-5 (ids, scores, offsets) agree."""
+    tracks = synth.synth_catalog(24, 4.0, cfg)
     filters = _filters(cfg)
     db = api.build_db(tracks, filters, cfg)
-    a = TwoStageDB(db, stride=4, use_pallas_fine=True, use_pallas_coarse=False,
-                   pallas_interpret=True)
-    b = TwoStageDB(db, stride=4, use_pallas_fine=True, use_pallas_coarse=True,
-                   coarse_tile=16, pallas_interpret=True)
+    a = TwoStageDB(db, stride=4)
+    b = TwoStageDB(db, stride=4, mesh=meshlib.db_mesh(8))
     for seed in (0, 1):
         q = synth.make_query(tracks[seed + 9], 0.7, 2.0, cfg,
                              noise_db=-12.0, seed=seed)
         qfp = api.fingerprint(q, filters, cfg)
-        ids_a, s_a, o_a = a.match(qfp, top_k=5, pool=16)
-        ids_b, s_b, o_b = b.match(qfp, top_k=5, pool=16)
+        ids_a, s_a, o_a = a.match(qfp, top_k=5, pool=7)
+        ids_b, s_b, o_b = b.match(qfp, top_k=5, pool=7)
         assert ids_a == ids_b
         np.testing.assert_array_equal(s_a, s_b)
         np.testing.assert_array_equal(o_a, o_b)
@@ -189,7 +188,7 @@ def test_two_stage_pallas_coarse_equals_xla_coarse(cfg):
 def test_pool_candidates_two_level_exact(cfg):
     """The two-level top-k pool returns the identical candidate list (values,
     order, tie-breaks) as one flat lax.top_k — heavy ties included."""
-    from hpfw_tpu.match.scaled import _POOL_ROWS, _pool_candidates
+    from hpfw_jax.match.scaled import _POOL_ROWS, _pool_candidates
 
     rng = np.random.default_rng(7)
     pool = 16
@@ -198,20 +197,19 @@ def test_pool_candidates_two_level_exact(cfg):
     got = np.asarray(_pool_candidates(scores, pool))
     _, want = jax.lax.top_k(scores, pool)
     np.testing.assert_array_equal(got, np.asarray(want))
-    # Small inputs fall back to the flat path and pad to the 8-tile by
-    # repeating the first candidate once the catalog is exhausted.
+    # Small inputs take the flat path; a pool beyond the catalog returns
+    # every track once.
     small = jnp.asarray(rng.integers(-5, 5, 5, dtype=np.int32))
     got_s = np.asarray(_pool_candidates(small, 3))
-    _, want_s = jax.lax.top_k(small, 5)
-    assert got_s.shape == (8,)
-    np.testing.assert_array_equal(got_s[:5], np.asarray(want_s))
-    np.testing.assert_array_equal(got_s[5:], np.repeat(got_s[0], 3))
+    np.testing.assert_array_equal(got_s, np.asarray(jax.lax.top_k(small, 3)[1]))
+    got_all = np.asarray(_pool_candidates(small, 9))
+    assert sorted(got_all.tolist()) == list(range(5))
 
 
 def test_two_stage_reduced_channels_matches_full_on_pool(cfg):
     """coarse_channels=32 halves coarse bytes; the two-stage result stays
     exact-on-pool (scores/offsets equal the exhaustive matcher when the
-    true track pools), across the XLA and Pallas paths."""
+    true track pools), on the single-device and sharded paths."""
     import dataclasses
 
     tracks = synth.synth_catalog(24, 4.0, cfg)
@@ -219,15 +217,15 @@ def test_two_stage_reduced_channels_matches_full_on_pool(cfg):
     cfg32 = dataclasses.replace(cfg, coarse_channels=32)
     db = api.build_db(tracks, filters, cfg32)
     xla = TwoStageDB(db, stride=4)
-    pal = TwoStageDB(db, stride=4, use_pallas_fine=True,
-                     coarse_tile=8, pallas_interpret=True)
+    pal = TwoStageDB(db, stride=4, mesh=meshlib.db_mesh(8))
     assert xla.coarse_channels == pal.coarse_channels == 32
+    assert xla.db_c.shape[2] == 32
     for seed in (0, 1):
         q = synth.make_query(tracks[seed + 11], 0.8, 2.0, cfg,
                              noise_db=-15.0, seed=seed)
         qfp = api.fingerprint(q, filters, cfg)
-        ia, sa, oa = xla.match(qfp, top_k=3, pool=16)
-        ip, sp, op = pal.match(qfp, top_k=3, pool=16)
+        ia, sa, oa = xla.match(qfp, top_k=3, pool=6)
+        ip, sp, op = pal.match(qfp, top_k=3, pool=6)
         assert ia == ip
         np.testing.assert_array_equal(sa, sp)
         np.testing.assert_array_equal(oa, op)
@@ -244,9 +242,8 @@ def test_phase_max_coarse_exact_and_robust(cfg):
     true track at least as high as the unphased coarse."""
     import jax.numpy as jnp
 
-    from hpfw_tpu.match.scaled import (_coarse_best, _coarse_best_phased,
-                                       _pool_candidates)
-    from hpfw_tpu.ops import coarse as coarse_ops
+    from hpfw_jax.match.scaled import _coarse_best_phased
+    from hpfw_jax.ops import coarse as coarse_ops
 
     rng = np.random.default_rng(5)
     T, L, NQ, stride = 48, 200, 64, 8
@@ -254,9 +251,8 @@ def test_phase_max_coarse_exact_and_robust(cfg):
     db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(T)],
                            prints, np.full(T, L, np.int32))
     for ts in (TwoStageDB(db, stride=stride, query_phases=4),
-               TwoStageDB(db, stride=stride, use_pallas_fine=True,
-                          coarse_tile=8, pallas_interpret=True,
-                          query_phases=4)):
+               TwoStageDB(db, stride=stride, query_phases=4,
+                          mesh=meshlib.db_mesh(8))):
         for r in (0, 3, 4, 7):                 # worst misphase incl. r=s/2
             off = 5 * stride + r
             q = prints[7, off:off + NQ].copy()
@@ -274,11 +270,11 @@ def test_phase_max_coarse_exact_and_robust(cfg):
                5 * stride + stride // 2 + NQ].copy()
     db_c3 = coarse_ops.coarse_pm1(jnp.asarray(prints), stride)
     qc = coarse_ops.coarse_pm1(jnp.asarray(q), stride)
-    best1, _ = _coarse_best(qc, db_c3, lc_true=None, coarse_tile=8,
-                            interpret=False)
+    best1 = coarse_ops.coarse_best(qc[None], db_c3)[0][0]
     bestp, centers = _coarse_best_phased(
-        jnp.asarray(q), db_c3, stride=stride, phases=4, coarse_kind="sign",
-        coarse_channels=64, lc_true=None, coarse_tile=8, interpret=False)
+        jnp.asarray(q)[None], db_c3, stride=stride, phases=4,
+        coarse_kind="sign", coarse_channels=64)
+    bestp, centers = bestp[0], centers[0]
     rank1 = int((np.asarray(best1) >= np.asarray(best1)[3]).sum())
     rankp = int((np.asarray(bestp) >= np.asarray(bestp)[3]).sum())
     assert rankp <= rank1
@@ -297,10 +293,8 @@ def test_two_pass_prefilter_coarse(cfg):
     prints = rng.integers(0, 2 ** 32, (T, L, 2), dtype=np.uint32)
     db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(T)],
                            prints, np.full(T, L, np.int32))
-    one = TwoStageDB(db, stride=stride, use_pallas_fine=True, coarse_tile=8,
-                     pallas_interpret=True, query_phases=4)
-    two = TwoStageDB(db, stride=stride, use_pallas_fine=True, coarse_tile=8,
-                     pallas_interpret=True, query_phases=4,
+    one = TwoStageDB(db, stride=stride, query_phases=4)
+    two = TwoStageDB(db, stride=stride, query_phases=4,
                      prefilter=T, prefilter_phases=2)
     qs = []
     for k, r in enumerate((1, 3, 4, 7)):
@@ -331,8 +325,7 @@ def test_two_pass_prefilter_coarse(cfg):
         assert tid[0] == ids[0]
         assert int(s[0]) == int(s1[0]) and int(o[0]) == int(o1[0])
     mesh = meshlib.db_mesh(8)
-    sharded = TwoStageDB(db, stride=stride, mesh=mesh, use_pallas_fine=True,
-                         pallas_interpret=True, query_phases=4,
+    sharded = TwoStageDB(db, stride=stride, mesh=mesh, query_phases=4,
                          prefilter=4, prefilter_phases=2)
     for k, q in enumerate(qs):
         ids, s, o = sharded.match(q, top_k=1, pool=4)
@@ -356,14 +349,12 @@ def test_prefilter_channel_subset(cfg, tmp_path):
     prints = rng.integers(0, 2 ** 32, (T, L, 2), dtype=np.uint32)
     db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(T)],
                            prints, np.full(T, L, np.int32))
-    one = TwoStageDB(db, stride=stride, use_pallas_fine=True, coarse_tile=8,
-                     pallas_interpret=True, query_phases=4)
-    sub = TwoStageDB(db, stride=stride, use_pallas_fine=True, coarse_tile=8,
-                     pallas_interpret=True, query_phases=4,
+    one = TwoStageDB(db, stride=stride, query_phases=4)
+    sub = TwoStageDB(db, stride=stride, query_phases=4,
                      prefilter=T, prefilter_phases=2, prefilter_channels=32,
                      keep_host=True)
     assert sub.db_c1 is not sub.db_c
-    assert sub.db_c1.shape[1] < sub.db_c.shape[1]
+    assert sub.db_c1.shape[2] == 32 < sub.db_c.shape[2]
     qs = []
     for k, r in enumerate((1, 3, 4, 7)):
         off = (4 + k) * stride + r
@@ -392,7 +383,6 @@ def test_prefilter_channel_subset(cfg, tmp_path):
     p = str(tmp_path / "ts_cache")
     sub.save(p)
     loaded = TwoStageDB.load(p)
-    loaded.pallas_interpret = True
     assert loaded.prefilter_channels == 32
     assert loaded.db_c1.shape == sub.db_c1.shape
     for k, q in enumerate(qs):
@@ -401,8 +391,7 @@ def test_prefilter_channel_subset(cfg, tmp_path):
         assert ids[0] == str(7 + k)
     # (d) sharded path with the subset pass-1
     mesh = meshlib.db_mesh(8)
-    sharded = TwoStageDB(db, stride=stride, mesh=mesh, use_pallas_fine=True,
-                         pallas_interpret=True, query_phases=4,
+    sharded = TwoStageDB(db, stride=stride, mesh=mesh, query_phases=4,
                          prefilter=4, prefilter_phases=2,
                          prefilter_channels=32)
     for k, q in enumerate(qs):
@@ -416,7 +405,7 @@ def test_prefilter_channel_subset(cfg, tmp_path):
 def test_catalog_scale_preset(cfg):
     """HpfwConfig.catalog_scale() pins the measured 250k recall point and
     TwoStageDB picks its knobs up; overrides pass through."""
-    from hpfw_tpu.config import HpfwConfig
+    from hpfw_jax.config import HpfwConfig
 
     c = HpfwConfig.catalog_scale()
     c.validate()
@@ -430,29 +419,41 @@ def test_catalog_scale_preset(cfg):
     prints = rng.integers(0, 2 ** 32, (16, 120, 2), dtype=np.uint32)
     db = api.FingerprintDB(c, _filters(c), [str(i) for i in range(16)],
                            prints, np.full(16, 120, np.int32))
-    ts = TwoStageDB(db, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db)
     assert (ts.query_phases, ts.prefilter, ts.prefilter_phases,
             ts.prefilter_channels) == (8, 8192, 2, 32)
     assert ts.db_c1 is not ts.db_c
 
 
-def test_two_pass_prefilter_xla_path_raises(cfg):
+def test_two_pass_prefilter_single_and_mesh(cfg):
+    """The two-pass preset runs on the single-device path and on the
+    8-device mesh; with every track pooled both equal the dense matcher
+    (score and offset) for misphased noisy excerpts."""
     rng = np.random.default_rng(10)
-    prints = rng.integers(0, 2 ** 32, (8, 80, 2), dtype=np.uint32)
-    db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(8)],
-                           prints, np.full(8, 80, np.int32))
-    ts = TwoStageDB(db, stride=8, query_phases=4)   # XLA path on CPU
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        ts.match(prints[0, :32], top_k=1, prefilter=4)
+    T, L, NQ, stride = 32, 120, 48, 8
+    prints = rng.integers(0, 2 ** 32, (T, L, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(T)],
+                           prints, np.full(T, L, np.int32))
+    kw = dict(stride=stride, query_phases=4, prefilter=8, prefilter_phases=2,
+              prefilter_channels=32)
+    single = TwoStageDB(db, **kw)
+    sharded = TwoStageDB(db, mesh=meshlib.db_mesh(8), **kw)
+    for k, r in enumerate((2, 5)):
+        off = 3 * stride + r
+        q = prints[4 + 9 * k, off:off + NQ].copy()
+        q[::7] ^= np.uint32(0x0F0F0F0F)
+        ids_d, s_d, o_d = api.match(q, db, top_k=1)
+        for ts, pool in ((single, 8), (sharded, 2)):
+            ids, s, o = ts.match(q, top_k=1, pool=pool)
+            assert ids[0] == ids_d[0] == str(4 + 9 * k)
+            assert int(s[0]) == int(s_d[0]) and int(o[0]) == int(o_d[0])
 
 
-def test_phased_lane_chunking_equals_unchunked(cfg, monkeypatch):
-    """Large batch x phases products are split into multiple stacked-kernel
-    calls (vmem budget); chunked results must be identical."""
-    from hpfw_tpu.match import scaled as scaled_mod
-    from hpfw_tpu.match.scaled import _coarse_best_batch_phased
-    from hpfw_tpu.ops.pallas_coarse import flatten_coarse
-    from hpfw_tpu.ops import coarse as coarse_ops
+def test_phased_batch_sweep_equals_per_query(cfg):
+    """The B*P variant rows of a phased batch ride one sweep; each query's
+    (best, center) equals its own single-query phased sweep."""
+    from hpfw_jax.match.scaled import _coarse_best_phased
+    from hpfw_jax.ops import coarse as coarse_ops
 
     rng = np.random.default_rng(12)
     T, L, NQ, stride = 16, 120, 48, 8
@@ -460,78 +461,58 @@ def test_phased_lane_chunking_equals_unchunked(cfg, monkeypatch):
     queries = jnp.asarray(
         np.stack([prints[i, 8 * i // 4 + i % 4:][:NQ] for i in range(6)]))
     db_c = coarse_ops.coarse_pm1(jnp.asarray(prints), stride)
-    flat = flatten_coarse(db_c)
     kw = dict(stride=stride, phases=4, coarse_kind="sign",
-              coarse_channels=64, lc_true=db_c.shape[1], coarse_tile=8,
-              interpret=True)
-    want_b, want_c = _coarse_best_batch_phased(queries, flat, **kw)
-    monkeypatch.setattr(scaled_mod, "_PHASED_STACK_BUDGET", 1)  # force chunks
-    got_b, got_c = _coarse_best_batch_phased(queries, flat, **kw)
-    np.testing.assert_array_equal(np.asarray(got_b), np.asarray(want_b))
-    np.testing.assert_array_equal(np.asarray(got_c), np.asarray(want_c))
+              coarse_channels=64)
+    got_b, got_c = _coarse_best_phased(queries, db_c, **kw)
+    for i in range(6):
+        want_b, want_c = _coarse_best_phased(queries[i:i + 1], db_c, **kw)
+        np.testing.assert_array_equal(np.asarray(got_b[i]), np.asarray(want_b[0]))
+        np.testing.assert_array_equal(np.asarray(got_c[i]), np.asarray(want_c[0]))
 
 
-def test_prefilter_pack4_identical(cfg, tmp_path):
-    """prefilter_pack4 (nibble-packed pass-1 rows, round 5): a pure storage
-    change to the pass-1 sweep — results must be IDENTICAL to the unpacked
-    two-pass matcher at every knob setting, the packed DB must be half the
-    bytes, save/load must keep it, and the sharded path must agree."""
-    rng = np.random.default_rng(27)
-    T, L, NQ, stride = 48, 200, 64, 8
+def test_dispatch_is_a_batch_of_one(cfg):
+    """dispatch(q) is dispatch_batch(q[None])[0]: one program, one result."""
+    rng = np.random.default_rng(3)
+    prints = rng.integers(0, 2 ** 32, (8, 40, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(8)],
+                           prints, np.full(8, 40, np.int32))
+    ts = TwoStageDB(db, stride=4)
+    q = jnp.asarray(prints[5, 3:23])
+    one = np.asarray(ts.dispatch(q, pool=4))
+    batch = np.asarray(ts.dispatch_batch(jnp.stack([q, q[::-1]]), pool=4))
+    assert one.shape == (3, 4)
+    np.testing.assert_array_equal(one, batch[0])
+    assert one[1, 0] == 5 and one[0, 0] == 64 * 20 and one[2, 0] == 3
+
+
+@pytest.mark.parametrize("mode", ["single_pass", "phased", "two_pass"])
+def test_mesh_result_equals_one_device(cfg, mode):
+    """Pools are chosen catalog-wide under a mesh: with pools smaller than
+    a shard and a catalog that needs padding, the 8-device result (full
+    top-k ids, scores, offsets) equals the one-device result, through
+    match and match_batch."""
+    rng = np.random.default_rng(40)
+    T, L, NQ, stride = 250, 120, 48, 8
     prints = rng.integers(0, 2 ** 32, (T, L, 2), dtype=np.uint32)
     db = api.FingerprintDB(cfg, _filters(cfg), [str(i) for i in range(T)],
                            prints, np.full(T, L, np.int32))
-    kw = dict(stride=stride, use_pallas_fine=True, coarse_tile=8,
-              pallas_interpret=True, query_phases=4,
-              prefilter=16, prefilter_phases=2, prefilter_channels=32)
-    ref = TwoStageDB(db, **kw)
-    packed = TwoStageDB(db, prefilter_pack4=True, keep_host=True, **kw)
-    assert packed.prefilter_pack4
-    assert packed.db_c1.shape[1] * 2 >= ref.db_c1.shape[1]
-    assert packed.db_c1.shape[1] <= -(-ref.db_c1.shape[1] // 256) * 128
+    kw = {"single_pass": {},
+          "phased": dict(query_phases=4),
+          "two_pass": dict(query_phases=4, prefilter=24, prefilter_phases=2,
+                           prefilter_channels=32)}[mode]
+    one = TwoStageDB(db, stride=stride, **kw)
+    sharded = TwoStageDB(db, stride=stride, mesh=meshlib.db_mesh(8), **kw)
     qs = []
-    for k, r in enumerate((1, 3, 4, 7)):
-        off = (4 + k) * stride + r
-        q = prints[7 + k, off:off + NQ].copy()
-        flip = (rng.integers(0, 1 << 32, (NQ, 2), dtype=np.uint32)
-                & rng.integers(0, 1 << 32, (NQ, 2), dtype=np.uint32)
-                & rng.integers(0, 1 << 32, (NQ, 2), dtype=np.uint32))
-        qs.append(np.bitwise_xor(q, flip))
-    for q in qs:
-        i1, s1, o1 = ref.match(q, top_k=5, pool=8)
-        i2, s2, o2 = packed.match(q, top_k=5, pool=8)
-        assert i1 == i2
-        np.testing.assert_array_equal(s1, s2)
-        np.testing.assert_array_equal(o1, o2)
-    r1 = ref.match_batch(np.stack(qs), top_k=3, pool=8)
-    r2 = packed.match_batch(np.stack(qs), top_k=3, pool=8)
-    for (ia, sa, oa), (ib, sb, ob) in zip(r1, r2):
-        assert ia == ib
-        np.testing.assert_array_equal(sa, sb)
-        np.testing.assert_array_equal(oa, ob)
-    # save/load keeps the packed pass-1 DB and the flag
-    p = str(tmp_path / "ts_pack4")
-    packed.save(p)
-    loaded = TwoStageDB.load(p)
-    loaded.pallas_interpret = True
-    assert loaded.prefilter_pack4
-    assert loaded.db_c1.shape == packed.db_c1.shape
-    for k, q in enumerate(qs):
-        ids, s, o = loaded.match(q, top_k=1, pool=8,
-                                 phases=4, phases1=2, prefilter=16)
-        assert ids[0] == str(7 + k)
-    # sharded path with the packed pass-1
-    mesh = meshlib.db_mesh(8)
-    sharded = TwoStageDB(db, mesh=mesh, prefilter_pack4=True,
-                         **{k: v for k, v in kw.items()
-                            if k not in ("coarse_tile",)},
-                         coarse_tile=8)
-    shref = TwoStageDB(db, mesh=mesh,
-                       **{k: v for k, v in kw.items()
-                          if k not in ("coarse_tile",)},
-                       coarse_tile=8)
-    for q in qs:
-        i1, s1, o1 = shref.match(q, top_k=3, pool=4)
-        i2, s2, o2 = sharded.match(q, top_k=3, pool=4)
-        assert i1 == i2
-        np.testing.assert_array_equal(s1, s2)
+    for k, t in enumerate((3, 77, 160, 249)):
+        q = prints[t, 10 + k:10 + k + NQ].copy()
+        q[::3] ^= np.uint32(0x00FF00FF)
+        qs.append(q)
+    qs = np.stack(qs)
+    want = [one.match(q, top_k=8, pool=12) for q in qs]
+    got = ([sharded.match(q, top_k=8, pool=12) for q in qs]
+           + sharded.match_batch(qs, top_k=8, pool=12))
+    for (ids, s, o), (ids_w, s_w, o_w) in zip(got, want + want):
+        assert ids == ids_w
+        np.testing.assert_array_equal(s, s_w)
+        np.testing.assert_array_equal(o, o_w)
+    assert [w[0][0] for w in want] == ["3", "77", "160", "249"]

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hpfw_tpu import api, oracle
-from hpfw_tpu.io import synth
-from hpfw_tpu.match.scaled import TwoStageDB
-from hpfw_tpu.serve import MatchServer
+from hpfw_jax import api, oracle
+from hpfw_jax.io import synth
+from hpfw_jax.match.scaled import TwoStageDB
+from hpfw_jax.serve import MatchServer
 
 
 def _filters(cfg, seed=0):
@@ -20,8 +20,7 @@ def served(cfg):
     tracks = synth.synth_catalog(16, 4.0, cfg)
     filters = _filters(cfg)
     db = api.build_db(tracks, filters, cfg)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, coarse_tile=8,
-                    pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     return cfg, tracks, filters, ts
 
 
@@ -61,7 +60,7 @@ def test_server_bounded_queue_sheds_load(served):
     """When the submit queue is full the server rejects with ServerSaturated
     instead of queueing unboundedly; accepted queries still resolve
     correctly."""
-    from hpfw_tpu.serve import ServerSaturated
+    from hpfw_jax.serve import ServerSaturated
 
     cfg, tracks, filters, ts = served
     q = synth.make_query(tracks[5], 0.5, 2.0, cfg, noise_db=-15.0, seed=9)
@@ -88,7 +87,7 @@ def test_server_on_mesh(cfg):
     """MatchServer over a mesh-sharded TwoStageDB (8-device CPU sim)."""
     import jax
 
-    from hpfw_tpu.parallel import mesh as meshlib
+    from hpfw_jax.parallel import mesh as meshlib
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU sim")
@@ -96,8 +95,7 @@ def test_server_on_mesh(cfg):
     filters = _filters(cfg)
     db = api.build_db(tracks, filters, cfg)
     mesh = meshlib.db_mesh(8)
-    ts = TwoStageDB(db, stride=4, mesh=mesh, use_pallas_fine=True,
-                    coarse_tile=8, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4, mesh=mesh)
     q = synth.make_query(tracks[6], 0.5, 2.0, cfg, noise_db=-15.0, seed=1)
     qfp = api.fingerprint(q, filters, cfg)
     with MatchServer(ts, qfp.shape[0], max_batch=4, max_wait_ms=10.0,
@@ -115,15 +113,14 @@ def test_escalating_server_end_to_end(cfg):
     escalation semantics; stats are consistent."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.serve import EscalatingMatchServer
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.serve import EscalatingMatchServer
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03, pitch_span_bins=0)
     tracks = np.asarray(synth_jax.synth_batch(np.arange(12), 6.0, cfg2))
     filters = _filters(cfg2)
     db = api.build_db(list(tracks), filters, cfg2)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, coarse_tile=8,
-                    pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     n_samples = int(4.0 * cfg2.sample_rate)
     truths = [3, 9, 5]
     pcms = [
@@ -159,15 +156,14 @@ def test_escalating_server_end_to_end(cfg):
 def test_escalating_server_rejects_and_closes(cfg):
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.serve import EscalatingMatchServer
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.serve import EscalatingMatchServer
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.02)
     tracks = np.asarray(synth_jax.synth_batch(np.arange(6), 6.0, cfg2))
     filters = _filters(cfg2)
     db = api.build_db(list(tracks), filters, cfg2)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, coarse_tile=8,
-                    pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     n_samples = int(4.0 * cfg2.sample_rate)
     srv = EscalatingMatchServer(ts, filters, n_samples, max_batch=2,
                                 max_wait_ms=1.0, pool=8)
@@ -187,15 +183,14 @@ def test_escalating_server_structure_gate(cfg):
     rendition fails the slope gate, escalates, and recovers."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.serve import EscalatingMatchServer
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.serve import EscalatingMatchServer
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03, pitch_span_bins=0)
     tracks = np.asarray(synth_jax.synth_batch(np.arange(12), 6.0, cfg2))
     filters = _filters(cfg2)
     db = api.build_db(list(tracks), filters, cfg2)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, coarse_tile=8,
-                    pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     n_samples = int(4.0 * cfg2.sample_rate)
     truths = [3, 9]
     pcms = [

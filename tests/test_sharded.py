@@ -11,11 +11,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from hpfw_tpu import api, oracle
-from hpfw_tpu.io import synth
-from hpfw_tpu.match import matcher
-from hpfw_tpu.match.sharded import ShardedDB, sharded_score
-from hpfw_tpu.parallel import mesh as meshlib
+from hpfw_jax import api, oracle
+from hpfw_jax.io import synth
+from hpfw_jax.match import matcher
+from hpfw_jax.match.sharded import ShardedDB, sharded_score
+from hpfw_jax.parallel import mesh as meshlib
 
 
 @pytest.fixture(scope="module")
@@ -88,3 +88,12 @@ def test_time_shift_property_sharded(cfg, mesh8):
         assert ids[0] == "6"
         assert int(offs[0]) == k
         assert int(scores[0]) == 64 * qfp.shape[0]
+
+
+def test_dryrun_multichip_runs_the_sharded_path():
+    """__graft_entry__.dryrun_multichip: covariance psum, dense sharded
+    match and the two-stage matcher (single, batched, two-pass) on the
+    8-device mesh."""
+    import __graft_entry__
+
+    __graft_entry__.dryrun_multichip(8)

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from hpfw_tpu import api, oracle
-from hpfw_tpu.io import synth
-from hpfw_tpu.streaming.session import ChunkedExtractor, StreamingSession, extract_chunked
+from hpfw_jax import api, oracle
+from hpfw_jax.io import synth
+from hpfw_jax.streaming.session import ChunkedExtractor, StreamingSession, extract_chunked
 
 
 def _filters(cfg, seed=0):
@@ -89,7 +89,7 @@ def test_streaming_session_with_two_stage_db(cfg):
     """Catalog-scale pairing: live stream matched against a TwoStageDB
     (the production live-song-ID path) converges to the truth and agrees
     with the dense-DB session."""
-    from hpfw_tpu.match.scaled import TwoStageDB
+    from hpfw_jax.match.scaled import TwoStageDB
 
     tracks = synth.synth_catalog(12, 5.0, cfg)
     filters = _filters(cfg)
@@ -118,13 +118,13 @@ def test_streaming_session_stretch_scan(cfg):
     (HpfwConfig.stretch_span -> TwoStageDB.match, match/stretch.py). The
     scan needs no session API: the knob serializes on the DB config. At
     this scale both sessions lock the right track (the 250k-scale recall
-    table lives in RESULTS); the scan must recover a clearly better
+    table is a pre-GPU run, see git history); the scan must recover a clearly better
     alignment score on the same stream, and an undistorted control must
     be unaffected by scanning."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.match.scaled import TwoStageDB
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.match.scaled import TwoStageDB
 
     tracks = [np.asarray(t) for t in synth_jax.synth_batch(
         np.arange(12), 6.0, cfg)]
@@ -175,8 +175,8 @@ def test_streaming_tempo_acquire_track(cfg):
     TwoStageDB.match(return_variant=True)."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.match.scaled import TwoStageDB
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.match.scaled import TwoStageDB
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03)
     tracks = [np.asarray(t) for t in synth_jax.synth_batch(
@@ -219,8 +219,8 @@ def test_streaming_pitch_acquire_track(cfg):
     key changes)."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.match.scaled import TwoStageDB
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.match.scaled import TwoStageDB
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03, pitch_span_bins=1)
     tracks = [np.asarray(t) for t in synth_jax.synth_batch(
@@ -262,8 +262,8 @@ def test_streaming_spec_scan_sharded_db(cfg):
 
     import jax
 
-    from hpfw_tpu.io import synth_jax
-    from hpfw_tpu.match.sharded import ShardedDB
+    from hpfw_jax.io import synth_jax
+    from hpfw_jax.match.sharded import ShardedDB
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03)
     tracks = [np.asarray(t) for t in synth_jax.synth_batch(
@@ -293,8 +293,8 @@ def test_streaming_frame_ring_matches_whole_track(cfg):
     so the streaming scan only ADDS hypotheses."""
     import jax.numpy as jnp
 
-    from hpfw_tpu.ops import frontend
-    from hpfw_tpu.streaming.session import ChunkedExtractor
+    from hpfw_jax.ops import frontend
+    from hpfw_jax.streaming.session import ChunkedExtractor
 
     pcm = synth.synth_track(3, 5.0, cfg)
     halo = cfg.context_w + cfg.delta_lag - 1
@@ -314,7 +314,7 @@ def test_streaming_frame_ring_matches_whole_track(cfg):
                                rtol=1e-5, atol=1e-4)
     # spec-scan identity row == the print ring, bit for bit (margins are
     # audited orders of magnitude above the frame noise)
-    from hpfw_tpu import api as api_mod
+    from hpfw_jax import api as api_mod
 
     frames = ring[-(64 + halo):]
     stack = np.asarray(api_mod.scan_from_spec(

@@ -9,11 +9,11 @@ results equal to match()).
 import numpy as np
 import pytest
 
-from hpfw_tpu import api
-from hpfw_tpu.io import synth
-from hpfw_tpu.match.scaled import TwoStageDB
-from hpfw_tpu.streaming.pool import StreamingPool
-from hpfw_tpu.streaming.session import StreamingSession
+from hpfw_jax import api
+from hpfw_jax.io import synth
+from hpfw_jax.match.scaled import TwoStageDB
+from hpfw_jax.streaming.pool import StreamingPool
+from hpfw_jax.streaming.session import StreamingSession
 from tests.test_persist import _filters
 
 
@@ -114,13 +114,11 @@ def test_pool_sharded_mesh(cfg, setup):
     identify correctly through the sharded match_batch dispatch."""
     import jax
 
-    from hpfw_tpu.parallel import mesh as meshlib
+    from hpfw_jax.parallel import mesh as meshlib
 
     assert len(jax.devices()) == 8
     tracks, filters, db = setup
-    ts = TwoStageDB(db, stride=4, mesh=meshlib.db_mesh(8),
-                    use_pallas_fine=True, coarse_tile=8,
-                    pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4, mesh=meshlib.db_mesh(8))
     pool = StreamingPool(ts, filters, cfg, capacity=2, query_prints=64,
                          chunk_prints=16, query_buckets=(64,))
     pool.add_stream("a")
@@ -139,8 +137,7 @@ def test_pool_two_stage_buckets(cfg, setup):
     streams started at different times occupy different buckets in the
     same tick and both identify correctly."""
     tracks, filters, db = setup
-    ts = TwoStageDB(db, use_pallas_fine=True, use_pallas_coarse=False,
-                    pallas_interpret=True, keep_host=True)
+    ts = TwoStageDB(db, keep_host=True)
     pool = StreamingPool(ts, filters, cfg, capacity=2, query_prints=64,
                          chunk_prints=16)
     pool.add_stream("early")

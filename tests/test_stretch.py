@@ -2,26 +2,26 @@
 
 Live renditions differ from the catalog in tempo; rigid-alignment Hamming
 scoring collapses past ~1% tempo error over a production-length query
-(RESULTS round 4, robustness at 250k). The scan re-times the query's print
+(pre-GPU run, see git history, robustness at 250k). The scan re-times the query's print
 sequence at a grid of hypothesized tempo factors (a pure time-axis gather
 on the PACKED prints) and ranks every hypothesis's candidates together.
 
 Tests simulate a rendition at tempo factor s at the PRINT level — query
 frame k shows catalog frame round(k*s), the exact frame-grid geometry the
 scan inverts — so they are deterministic and fast; the PCM-level behavior
-(within-context distortion included) is measured in
-benchmarks/stretch_study.py and at 250k in benchmarks/robustness_250k.py.
+(within-context distortion included) was measured by study scripts
+before the GPU port (see git history).
 """
 
 import numpy as np
 import pytest
 
-from hpfw_tpu import api, oracle
-from hpfw_tpu.config import HpfwConfig
-from hpfw_tpu.io import synth
-from hpfw_tpu.match.scaled import TwoStageDB
-from hpfw_tpu.match.stretch import print_variants, stretch_grid
-from hpfw_tpu.parallel import mesh as meshlib
+from hpfw_jax import api, oracle
+from hpfw_jax.config import HpfwConfig
+from hpfw_jax.io import synth
+from hpfw_jax.match.scaled import TwoStageDB
+from hpfw_jax.match.stretch import print_variants, stretch_grid
+from hpfw_jax.parallel import mesh as meshlib
 
 
 def _filters(cfg, seed=0):
@@ -138,7 +138,7 @@ def test_stretch_config_default_drives_match(small_db):
 def test_stretch_match_batch_agrees_with_match(small_db):
     """Batched scan (B*V-row dispatch, Pallas interpret) == per-query scan."""
     cfg, tracks, filters, db = small_db
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     qs = np.stack([_stretched_query(db, t, 3, 100, s)
                    for t, s in [(2, 1.02), (19, 0.98), (11, 1.0)]])
     batch = ts.match_batch(qs, top_k=2, pool=8, stretch_span=0.02)
@@ -156,8 +156,7 @@ def test_stretch_sharded_mesh(small_db):
     """The scan composes with the 8-device sharded path (all-gather merge)."""
     cfg, tracks, filters, db = small_db
     mesh = meshlib.db_mesh(8)
-    ts = TwoStageDB(db, stride=4, mesh=mesh,
-                    use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4, mesh=mesh)
     q = _stretched_query(db, 17, 5, 100, 1.03)
     ids, s, _ = ts.match(q, top_k=1, pool=3, stretch_span=0.03)
     assert ids[0] == "17"
@@ -200,7 +199,7 @@ def test_match_accepts_prescanned_variant_stacks(small_db):
     as the print-level scan, but with caller-built variants (the spec-level
     scan's output)."""
     cfg, tracks, filters, db = small_db
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     # a V=1 stack must be exactly the plain match
     q = _stretched_query(db, 9, 3, 100, 1.0)
     def same(a, b):
@@ -231,13 +230,13 @@ def test_match_accepts_prescanned_variant_stacks(small_db):
 def test_spec_scan_recovers_tempo_end_to_end(cfg):
     """PCM-level: a 3%-fast rendition (synth_jax.live_query_batch) is
     recovered by the spec-level scan where the rigid path mis-scores it.
-    Small-scale twin of the 250k measurement (RESULTS round 4)."""
-    from hpfw_tpu.io import synth_jax
+    Small-scale twin of the 250k measurement (pre-GPU run, see git history)."""
+    from hpfw_jax.io import synth_jax
 
     tracks = np.asarray(synth_jax.synth_batch(np.arange(16), 6.0, cfg))
     filters = _filters(cfg)
     db = api.build_db(list(tracks), filters, cfg)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     truths = [3, 11]
     pcm = np.asarray(synth_jax.live_query_batch(
         truths, [int(0.5 * cfg.sample_rate)] * 2, 6.0, 4.0, cfg,
@@ -259,13 +258,13 @@ def test_match_scan_escalating(cfg):
     which hypothesis won."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
+    from hpfw_jax.io import synth_jax
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03)
     tracks = np.asarray(synth_jax.synth_batch(np.arange(12), 6.0, cfg2))
     filters = _filters(cfg2)
     db = api.build_db(list(tracks), filters, cfg2)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     truths = [3, 9]
     # one in-tempo, one 3%-fast
     pcm = np.stack([
@@ -284,7 +283,7 @@ def test_match_scan_escalating(cfg):
     ids, sc, off, var = ts.match(stack, top_k=1, pool=16,
                                  return_variant=True)
     assert ids[0] == str(truths[1])
-    from hpfw_tpu.match.stretch import stretch_grid
+    from hpfw_jax.match.stretch import stretch_grid
 
     factors = stretch_grid(0.03, 0.01)
     assert abs(factors[int(var[0])] - 1.03) < 0.015
@@ -303,13 +302,13 @@ def test_escalation_structure_gate_and_retry(cfg):
     unconfident queries with a deeper pool first and records itself."""
     import dataclasses
 
-    from hpfw_tpu.io import synth_jax
+    from hpfw_jax.io import synth_jax
 
     cfg2 = dataclasses.replace(cfg, stretch_span=0.03)
     tracks = np.asarray(synth_jax.synth_batch(np.arange(12), 6.0, cfg2))
     filters = _filters(cfg2)
     db = api.build_db(list(tracks), filters, cfg2)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     truths = [3, 9]
     pcm = np.stack([
         np.asarray(synth_jax.live_query_batch(
@@ -370,7 +369,7 @@ def test_calibrated_variant_ranking(small_db):
     a genuine stretched query the truth still wins (both paths exercise
     the float-score/int-index split)."""
     cfg, tracks, filters, db = small_db
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     q = _stretched_query(db, 13, 4, 100, 1.03)
     plain = ts.match(q, top_k=1, pool=24, stretch_span=0.03)
     cal = ts.match(q, top_k=1, pool=24, stretch_span=0.03, calibrate=True)
@@ -399,7 +398,7 @@ def test_stretch_config_validation():
 
 
 def test_pitch_and_hypothesis_grids():
-    from hpfw_tpu.match.stretch import hypothesis_grid, pitch_grid
+    from hpfw_jax.match.stretch import hypothesis_grid, pitch_grid
 
     assert pitch_grid(0) == [0]
     assert pitch_grid(2) == [-2, -1, 0, 1, 2]
@@ -414,7 +413,7 @@ def test_scan_from_spec_pitch_roll_rekeys_bins(cfg):
     (edge-clamped) spectrogram: catalog bin k <- query bin k+roll."""
     import jax.numpy as jnp
 
-    from hpfw_tpu.ops import fingerprint as fp_ops
+    from hpfw_jax.ops import fingerprint as fp_ops
 
     rng = np.random.default_rng(5)
     spec = rng.standard_normal((60, cfg.n_bins)).astype(np.float32)
@@ -451,12 +450,12 @@ def test_pitch_scan_recovers_key_end_to_end(cfg):
     re-keyed by the +1-bin-roll hypothesis — the scan's best score beats
     the rigid score and the winning variant is the true roll. Small-scale
     twin of the 250k pitch measurement."""
-    from hpfw_tpu.io import synth_jax
+    from hpfw_jax.io import synth_jax
 
     tracks = np.asarray(synth_jax.synth_batch(np.arange(16), 6.0, cfg))
     filters = _filters(cfg)
     db = api.build_db(list(tracks), filters, cfg)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     truths = [3, 11]
     pcm = np.asarray(synth_jax.live_query_batch(
         truths, [int(0.5 * cfg.sample_rate)] * 2, 6.0, 4.0, cfg,
@@ -480,12 +479,12 @@ def test_combined_pitch_tempo_scan_end_to_end(cfg):
     """The realistic live case: pitched +0.5 st AND 3% fast. The product
     grid contains the true (tempo, roll) combo and recovers the track
     where both single-axis scans mis-score."""
-    from hpfw_tpu.io import synth_jax
+    from hpfw_jax.io import synth_jax
 
     tracks = np.asarray(synth_jax.synth_batch(np.arange(16), 6.0, cfg))
     filters = _filters(cfg)
     db = api.build_db(list(tracks), filters, cfg)
-    ts = TwoStageDB(db, stride=4, use_pallas_fine=True, pallas_interpret=True)
+    ts = TwoStageDB(db, stride=4)
     truths = [5, 13]
     pcm = np.asarray(synth_jax.live_query_batch(
         truths, [int(0.5 * cfg.sample_rate)] * 2, 6.0, 4.0, cfg,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hpfw_tpu import api
-from hpfw_tpu.io import synth_jax
+from hpfw_jax import api
+from hpfw_jax.io import synth_jax
 from tests.test_persist import _filters
 
 

@@ -2,7 +2,7 @@
 decoder equality, Ogg CRC integrity, load_wav dispatch, and fuzzing.
 
 No Vorbis tooling exists in this offline environment, so fixtures come from
-hpfw_tpu.io.vorbis.encode_vorbis — a real, spec-conforming encoder
+hpfw_jax.io.vorbis.encode_vorbis — a real, spec-conforming encoder
 (windowed MDCT, floor-1 posts, residue cascade, self-designed in-band
 codebooks, Ogg pages with CRCs). The encoder and the two decoders are three
 independent code paths over the wire format.
@@ -11,9 +11,9 @@ independent code paths over the wire format.
 import numpy as np
 import pytest
 
-from hpfw_tpu.io import native, wav
-from hpfw_tpu.io.ogg import ogg_crc, parse_pages, write_pages
-from hpfw_tpu.io.vorbis import decode_vorbis, encode_vorbis
+from hpfw_jax.io import native, wav
+from hpfw_jax.io.ogg import ogg_crc, parse_pages, write_pages
+from hpfw_jax.io.vorbis import decode_vorbis, encode_vorbis
 
 
 def _sig(n, sr=22050, seed=0):
@@ -84,7 +84,7 @@ def test_ogg_crc_and_page_roundtrip():
     pkts = [(b"hello", 0), (b"x" * 700, 5), (b"", 9), (b"y" * 255, 12)]
     blob = write_pages(pkts)
     pages = parse_pages(blob)
-    from hpfw_tpu.io.ogg import pages_to_packets
+    from hpfw_jax.io.ogg import pages_to_packets
 
     got = pages_to_packets(pages)
     assert [p for p, _ in got] == [p for p, _ in pkts]
@@ -148,7 +148,7 @@ def test_vorbis_fuzz_no_crash():
 # with libvorbisfile — the same house method as libmpg123 for MPEG.
 # ---------------------------------------------------------------------------
 
-vorbis_ref = pytest.importorskip("hpfw_tpu.io.vorbis_ref")
+vorbis_ref = pytest.importorskip("hpfw_jax.io.vorbis_ref")
 
 
 @pytest.mark.skipif(not vorbis_ref.vorbis_ref_available()

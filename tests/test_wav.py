@@ -10,7 +10,7 @@ import struct
 import numpy as np
 import pytest
 
-from hpfw_tpu.io import native, wav
+from hpfw_jax.io import native, wav
 
 # First 2 bytes of the SubFormat GUID are the format code; the remainder is
 # the fixed KSDATAFORMAT suffix.
@@ -216,7 +216,7 @@ def test_wav_with_embedded_mpeg_payload_routes_to_wav(tmp_path):
     """ADVICE r3: decisive container magic (RIFF/WAVE) must beat the
     heuristic MPEG sniff — a PCM payload containing a genuine MPEG stream
     (sync patterns that verify two-frame) must still decode as WAV."""
-    from hpfw_tpu.io.mp3enc import encode_mp3
+    from hpfw_jax.io.mp3enc import encode_mp3
 
     rng = np.random.default_rng(3)
     mp3_bytes = encode_mp3((rng.standard_normal(4096) * 0.2
@@ -238,7 +238,7 @@ def test_lone_midfile_truncated_sync_is_not_mpeg():
     """ADVICE r3: a mid-file sync whose frame extends past EOF (so no second
     header can verify it) is payload junk, not an MPEG stream; but a
     genuine truncated single-frame stream starting at byte 0 still sniffs."""
-    from hpfw_tpu.io.mp3enc import encode_mp3
+    from hpfw_jax.io.mp3enc import encode_mp3
 
     frame = encode_mp3(np.zeros(2048, dtype=np.float32), 44100)[:200]
     assert wav._looks_like_mpeg(frame)  # truncated frame at pos 0: decisive

@@ -1,4 +1,4 @@
-"""Generate native/aac_tables.inc from hpfw_tpu/io/_aac_tables.py.
+"""Generate native/aac_tables.inc from hpfw_jax/io/_aac_tables.py.
 
 Same house rule as tools/gen_mpeg_tables.py: the probe-recovered Python
 tables are the source of truth; the C++ twin's include is GENERATED and
@@ -10,9 +10,9 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hpfw_tpu.io._aac_tables import (SF_BOOK, SPEC_BOOKS, SWB_LONG,
+from hpfw_jax.io._aac_tables import (SF_BOOK, SPEC_BOOKS, SWB_LONG,
                                      SWB_SHORT)
-from hpfw_tpu.io.aac import (ADTS_RATES, TNS_MAX_BANDS_LONG,
+from hpfw_jax.io.aac import (ADTS_RATES, TNS_MAX_BANDS_LONG,
                              TNS_MAX_BANDS_SHORT)
 
 
@@ -21,7 +21,7 @@ def main():
                        "aac_tables.inc")
     with open(out, "w") as f:
         f.write("// GENERATED by tools/gen_aac_tables.py from\n"
-                "// hpfw_tpu/io/_aac_tables.py (probe-recovered, certified"
+                "// hpfw_jax/io/_aac_tables.py (probe-recovered, certified"
                 " tables).\n// Do not edit.\n\n")
         f.write("static const int kAacRates[12] = {%s};\n\n"
                 % ", ".join(str(r) for r in ADTS_RATES))

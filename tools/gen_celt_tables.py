@@ -1,4 +1,4 @@
-"""Generate native/celt_tables.inc from hpfw_tpu/io/_celt_tables.py.
+"""Generate native/celt_tables.inc from hpfw_jax/io/_celt_tables.py.
 
 Same house rule as tools/gen_mpeg_tables.py / gen_aac_tables.py: the
 probe-recovered Python tables (themselves generated by
@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hpfw_tpu.io import _celt_tables as T
+from hpfw_jax.io import _celt_tables as T
 
 
 def _int_array(f, name, vals):
@@ -35,7 +35,7 @@ def main():
                        "celt_tables.inc")
     with open(out, "w") as f:
         f.write("// GENERATED by tools/gen_celt_tables.py from\n"
-                "// hpfw_tpu/io/_celt_tables.py (probe-recovered from the"
+                "// hpfw_jax/io/_celt_tables.py (probe-recovered from the"
                 " system reference\n// binary, certified by"
                 " tests/test_opus.py). Do not edit.\n\n")
         _int_array(f, "kEBand5ms", T.EBAND5MS)

@@ -19,12 +19,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from hpfw_tpu.io._mp3_huffman import BIG_VALUE_TABLES, COUNT1_TABLES
-from hpfw_tpu.io._mp3_layer3 import (_NR_OF_SFB, PRETAB, SFB_LONG,
+from hpfw_jax.io._mp3_huffman import BIG_VALUE_TABLES, COUNT1_TABLES
+from hpfw_jax.io._mp3_layer3 import (_NR_OF_SFB, PRETAB, SFB_LONG,
                                      SFB_LONG_LSF, SFB_SHORT,
                                      SFB_SHORT_LSF, SLEN)
-from hpfw_tpu.io._mpeg_l2_tables import ALLOC_TABLES, QCLASS, _TRANSLATE
-from hpfw_tpu.io._mpeg_window import SYNTH_WINDOW
+from hpfw_jax.io._mpeg_l2_tables import ALLOC_TABLES, QCLASS, _TRANSLATE
+from hpfw_jax.io._mpeg_window import SYNTH_WINDOW
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "native",
                    "mpeg_tables.inc")
@@ -41,7 +41,7 @@ def fmt_rows(vals, fmt, per_row=6):
 def main():
     w = []
     w.append("// Generated by tools/gen_mpeg_tables.py — DO NOT EDIT.")
-    w.append("// Source of truth: hpfw_tpu/io/_mpeg_window.py,")
+    w.append("// Source of truth: hpfw_jax/io/_mpeg_window.py,")
     w.append("// _mpeg_l2_tables.py, _mp3_huffman.py (probe-recovered; see")
     w.append("// their docstrings for provenance).")
     w.append("")

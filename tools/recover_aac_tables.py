@@ -37,7 +37,7 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from hpfw_tpu.io import aac_ref
+from hpfw_jax.io import aac_ref
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "aac_recovered")
 
@@ -631,7 +631,7 @@ def recover_spec_book_11(sr_idx=4):
 # ----------------------------------------------------------- phase: emit
 
 def emit_tables():
-    """Write hpfw_tpu/io/_aac_tables.py from the recovered JSON artifacts
+    """Write hpfw_jax/io/_aac_tables.py from the recovered JSON artifacts
     (the checked-in Python source of truth, like _mp3_huffman.py)."""
     swb_l = json.load(open(os.path.join(OUT_DIR, "swb_long.json")))
     swb_s = json.load(open(os.path.join(OUT_DIR, "swb_short.json")))
@@ -639,7 +639,7 @@ def emit_tables():
     books = {cb: json.load(open(os.path.join(OUT_DIR,
                                              f"spec_book_{cb}.json")))
              for cb in range(1, 12)}
-    path = os.path.join(os.path.dirname(__file__), "..", "hpfw_tpu", "io",
+    path = os.path.join(os.path.dirname(__file__), "..", "hpfw_jax", "io",
                         "_aac_tables.py")
     with open(path, "w") as f:
         f.write('"""AAC-LC tables, GENERATED by tools/recover_aac_tables.py.\n'

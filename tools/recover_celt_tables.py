@@ -45,7 +45,7 @@ libopus builds by default and the only one Ogg Opus uses):
                       binary (tf_select/ordery/interleave uniquely).
 
 Usage:  python tools/recover_celt_tables.py [libopus_path] [out_path]
-Writes hpfw_tpu/io/_celt_tables.py (generated file — do not hand-edit).
+Writes hpfw_jax/io/_celt_tables.py (generated file — do not hand-edit).
 """
 
 from __future__ import annotations
@@ -310,7 +310,7 @@ def main():
                 break
             except OSError:
                 continue
-    out = sys.argv[2] if len(sys.argv) > 2 else "hpfw_tpu/io/_celt_tables.py"
+    out = sys.argv[2] if len(sys.argv) > 2 else "hpfw_jax/io/_celt_tables.py"
     tables = recover(lib)
     emit(tables, out, lib)
     n = sum(np.asarray(v).size for v in tables.values())

@@ -27,7 +27,7 @@ measurement: candidate field widths L are verified by probing the unit
 whose x-linbits pattern is 1000... - only the true L yields the expected
 value 15 + 2^(L-1).
 
-Output: rewrites hpfw_tpu/io/_mp3_huffman.py with the complete tables.
+Output: rewrites hpfw_jax/io/_mp3_huffman.py with the complete tables.
 Run:  python tools/recover_mp3_huffman.py
 """
 
@@ -40,7 +40,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from hpfw_tpu.io import mp3enc, mpeg_ref  # noqa: E402
+from hpfw_jax.io import mp3enc, mpeg_ref  # noqa: E402
 
 SR_IDX = 1          # 48 kHz
 BITRATE_IDX = 1     # 32 kbps -> 96-byte frames, cheap batches
@@ -455,7 +455,7 @@ def main():
             tables[t] = None
     count1a = recover_count1_a(readout)
     _write_module(tables, count1a)
-    print("wrote hpfw_tpu/io/_mp3_huffman.py")
+    print("wrote hpfw_jax/io/_mp3_huffman.py")
     return 0
 
 
@@ -514,7 +514,7 @@ def tree(table):
         node[last] = val
     return root
 """)
-    with open("hpfw_tpu/io/_mp3_huffman.py", "w") as f:
+    with open("hpfw_jax/io/_mp3_huffman.py", "w") as f:
         f.write("\n".join(lines))
 
 

@@ -16,7 +16,7 @@ streams (one subband sample changed), so the unknown requantization offset
 cancels and only the slope convention enters (folded into D's scale, then
 sanity-checked against the window's known peak magnitude ~1.1449).
 
-Output: writes hpfw_tpu/io/_mpeg_window.py with the recovered D (and the
+Output: writes hpfw_jax/io/_mpeg_window.py with the recovered D (and the
 integer structure check — mpg123's table is integer-valued at scale 2^16,
 which both confirms provenance and makes the recovery exact, not
 approximate).
@@ -32,7 +32,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from hpfw_tpu.io import mp3enc, mpeg_ref  # noqa: E402
+from hpfw_jax.io import mp3enc, mpeg_ref  # noqa: E402
 
 NB = 15  # alloc code 14 -> 15-bit samples: finest Layer I quantization
 MID = 1 << (NB - 1)
@@ -135,9 +135,9 @@ def main():
             f"SYNTH_WINDOW_X65536 = np.array({body}, dtype=np.int64)\n\n"
             "SYNTH_WINDOW = SYNTH_WINDOW_X65536 / 65536.0\n"
         )
-        with open("hpfw_tpu/io/_mpeg_window.py", "w") as f:
+        with open("hpfw_jax/io/_mpeg_window.py", "w") as f:
             f.write(src)
-        print("wrote hpfw_tpu/io/_mpeg_window.py")
+        print("wrote hpfw_jax/io/_mpeg_window.py")
     else:
         np.save("/tmp/mpeg_window_raw.npy", D)
         print("no integer structure; raw float table at "
